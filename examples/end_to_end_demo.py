@@ -15,11 +15,11 @@ import tempfile
 import numpy as np
 import yaml
 
-from detprocess_tpu import FilterData, Salting, TriggerProcessing, \
+from detprocess_jax import FilterData, Salting, TriggerProcessing, \
     FeatureProcessing, Noise, DIDVAnalysis
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse, tesnoise
-from detprocess_tpu.utils import plotting
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse, tesnoise
+from detprocess_jax.utils import plotting
 
 FS = 1.25e6
 NT, PRETRIG = 4096, 1024
@@ -48,7 +48,7 @@ def make_raw_group(root, rng):
 
 
 def main(out_dir=None):
-    out_dir = out_dir or tempfile.mkdtemp(prefix="detprocess_tpu_demo_")
+    out_dir = out_dir or tempfile.mkdtemp(prefix="detprocess_jax_demo_")
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(0)
     print(f"demo output → {out_dir}")

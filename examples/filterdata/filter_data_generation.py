@@ -14,8 +14,8 @@ import tempfile
 
 import numpy as np
 
-from detprocess_tpu import FilterData, Template
-from detprocess_tpu.models import pulse
+from detprocess_jax import FilterData, Template
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT, PRETRIG = 4096, 1024

@@ -14,9 +14,9 @@ import tempfile
 
 import numpy as np
 
-from detprocess_tpu import DIDVAnalysis
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import tesnoise, pulse
+from detprocess_jax import DIDVAnalysis
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import tesnoise, pulse
 
 FS = 1.25e6
 SGFREQ, SGAMP, RSH = 100.0, 2e-8, 5e-3

@@ -14,9 +14,9 @@ import tempfile
 
 import numpy as np
 
-from detprocess_tpu import IVSweepProcessing, IVSweepAnalysis
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import tesnoise
+from detprocess_jax import IVSweepProcessing, IVSweepAnalysis
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import tesnoise
 
 FS = 1.25e6
 SGFREQ, SGAMP, RSH = 100.0, 2e-8, 5e-3

@@ -13,8 +13,8 @@ import tempfile
 
 import numpy as np
 
-from detprocess_tpu import Noise
-from detprocess_tpu.io.rawdata import RawWriter
+from detprocess_jax import Noise
+from detprocess_jax.io.rawdata import RawWriter
 
 FS = 1.25e6
 NT, PRETRIG = 4096, 1024

@@ -9,8 +9,8 @@ Run:  python examples/noise/noise_model.py
 
 import numpy as np
 
-from detprocess_tpu import NoiseModel
-from detprocess_tpu.models import tesnoise
+from detprocess_jax import NoiseModel
+from detprocess_jax.models import tesnoise
 
 FS = 1.25e6
 N = 8192

@@ -7,35 +7,38 @@ batch along the mesh's events axis (events are independent — no
 collectives; filter banks replicate). The same switch is the CLI's
 ``--mesh-devices N``. This replaces the reference's
 multiprocessing-Pool-over-series (detprocess/process/triggers.py)
-with data parallelism over chips inside one pipeline instance.
+with data parallelism over devices inside one pipeline instance.
 
-Runs on a virtual 8-device CPU mesh by default; on a real pod slice
-the same code rides ICI.
+Runs on every device JAX finds (the GPUs of the host); ``--cpu-mesh N``
+runs it on N virtual CPU devices instead.
 
-Run:  python examples/processing/mesh_pipelines.py
+Run:  python examples/processing/mesh_pipelines.py [--cpu-mesh 8]
 """
 
 import os
+import sys
 import tempfile
 
-# virtual 8-device CPU mesh (must be set before jax import)
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-flags = os.environ.get("XLA_FLAGS", "")
-if "host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8").strip()
+# --cpu-mesh N: N virtual CPU devices instead of the machine's own
+# devices (decided before jax is imported)
+if "--cpu-mesh" in sys.argv:
+    n_cpu = int(sys.argv[sys.argv.index("--cpu-mesh") + 1])
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["XLA_FLAGS"] = " ".join(
+        [f for f in os.environ.get("XLA_FLAGS", "").split()
+         if "host_platform_device_count" not in f]
+        + [f"--xla_force_host_platform_device_count={n_cpu}"])
 
 import jax                                                   # noqa: E402
-jax.config.update("jax_platforms", "cpu")
 import numpy as np                                           # noqa: E402
 import yaml                                                  # noqa: E402
 
-from detprocess_tpu.io.filterfile import FilterData          # noqa: E402
-from detprocess_tpu.io.rawdata import RawWriter              # noqa: E402
-from detprocess_tpu.models import pulse                      # noqa: E402
-from detprocess_tpu.parallel import mesh as pmesh            # noqa: E402
-from detprocess_tpu.pipelines.features import FeatureProcessing  # noqa: E402
-from detprocess_tpu.pipelines.triggers import TriggerProcessing  # noqa: E402
+from detprocess_jax.io.filterfile import FilterData          # noqa: E402
+from detprocess_jax.io.rawdata import RawWriter              # noqa: E402
+from detprocess_jax.models import pulse                      # noqa: E402
+from detprocess_jax.parallel import mesh as pmesh            # noqa: E402
+from detprocess_jax.pipelines.features import FeatureProcessing  # noqa: E402
+from detprocess_jax.pipelines.triggers import TriggerProcessing  # noqa: E402
 
 FS = 1.25e6
 NT, PRETRIG, L, NEV = 1024, 256, 120000, 12
@@ -80,7 +83,7 @@ def main():
                                     "template_tag": "default"},
             "baseline": {"run": True}}}}, open(fpath, "w"))
 
-    mesh = pmesh.make_mesh(8)
+    mesh = pmesh.make_mesh()
     print(f"mesh: {mesh.devices.size} devices, axes {mesh.axis_names}")
 
     tp = TriggerProcessing(raw_files, tpath, filter_data=fd, verbose=False)

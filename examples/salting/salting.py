@@ -26,9 +26,9 @@ def dm_rate(e_kev):
 import numpy as np
 import yaml
 
-from detprocess_tpu import Noise, Salting, TriggerProcessing
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
+from detprocess_jax import Noise, Salting, TriggerProcessing
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT, PRETRIG = 4096, 1024
@@ -91,7 +91,7 @@ def main(out_dir=None):
     df = trig.process()
 
     # ---- saltchecks: efficiency vs energy ------------------------------
-    from detprocess_tpu.pipelines.salting import salt_efficiency
+    from detprocess_jax.pipelines.salting import salt_efficiency
 
     eff = salt_efficiency(df_salt, df, match_window_samples=20,
                           energy_bins=[0, 150, 300, 600])

@@ -27,9 +27,9 @@ import numpy as np
 import pandas as pd
 import yaml
 
-from detprocess_tpu import FilterData, TriggerProcessing
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
+from detprocess_jax import FilterData, TriggerProcessing
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT, PRETRIG = 512, 128

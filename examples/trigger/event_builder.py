@@ -24,10 +24,10 @@ import tempfile
 import numpy as np
 import yaml
 
-from detprocess_tpu import (EventBuilder, FilterData, OptimumFilterTrigger,
+from detprocess_jax import (EventBuilder, FilterData, OptimumFilterTrigger,
                             YamlConfig)
-from detprocess_tpu.io.rawdata import RawData, RawWriter
-from detprocess_tpu.models import pulse
+from detprocess_jax.io.rawdata import RawData, RawWriter
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT, PRETRIG = 4096, 1024

@@ -1,40 +1,44 @@
 """Long-trace triggering sharded across a device mesh with halo exchange.
 
-TPU-native design addition over the reference (SURVEY.md §5): one
-continuous trace is split across chips; the FIR exchanges one
-template length of halo over ICI and the pileup-merge scan carries cross
-shard boundaries, so the output is exactly the unsharded result.
+A design addition over the reference (SURVEY.md §5): one
+continuous trace is split across devices; the FIR exchanges one
+template length of halo between neighbours and the pileup-merge scan
+carries cross shard boundaries, so the output is exactly the unsharded
+result.
 
-Runs on a virtual 8-device CPU mesh by default (set JAX_PLATFORMS=cpu,
-works anywhere); on a real pod slice the same code rides ICI.
+Runs on every device JAX finds (the GPUs of the host); ``--cpu-mesh N``
+runs it on N virtual CPU devices instead.
 
-Run:  python examples/trigger/longtrace_sharded.py
+Run:  python examples/trigger/longtrace_sharded.py [--cpu-mesh 8]
 """
 
 import os
+import sys
 
-# virtual 8-device CPU mesh (must be set before jax import)
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-flags = os.environ.get("XLA_FLAGS", "")
-if "host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8").strip()
+# --cpu-mesh N: N virtual CPU devices instead of the machine's own
+# devices (decided before jax is imported)
+if "--cpu-mesh" in sys.argv:
+    n_cpu = int(sys.argv[sys.argv.index("--cpu-mesh") + 1])
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["XLA_FLAGS"] = " ".join(
+        [f for f in os.environ.get("XLA_FLAGS", "").split()
+         if "host_platform_device_count" not in f]
+        + [f"--xla_force_host_platform_device_count={n_cpu}"])
 
 import jax                                                   # noqa: E402
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp                                      # noqa: E402
 import numpy as np                                           # noqa: E402
 
-from detprocess_tpu.models import pulse                      # noqa: E402
-from detprocess_tpu.ops import filterbank, trigger as trig   # noqa: E402
-from detprocess_tpu.parallel import mesh as pmesh            # noqa: E402
+from detprocess_jax.models import pulse                      # noqa: E402
+from detprocess_jax.ops import filterbank, trigger as trig   # noqa: E402
+from detprocess_jax.parallel import mesh as pmesh            # noqa: E402
 
 FS = 1.25e6
 NT, PRETRIG = 1024, 256
 
 
 def main():
-    n_shards = 8
+    n_shards = len(jax.devices())
     l_glob = n_shards * 131072                 # one ~1M-sample trace
     tmpl = pulse.make_template(FS, NT, PRETRIG, A=1.0, tau_r=10e-6,
                                tau_f1=100e-6)
@@ -47,8 +51,9 @@ def main():
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(l_glob) * np.sqrt(psd[0] * FS))
     inj = list(range(50_000, l_glob - 50_000, 97_003))
-    # one pulse dead on a shard boundary
-    inj.append(2 * (l_glob // n_shards) - NT // 3)
+    # one pulse straddling the middle (a shard boundary for any even
+    # shard count)
+    inj.append(l_glob // 2 - NT // 3)
     for t0 in inj:
         x[t0 - PRETRIG:t0 - PRETRIG + NT] += 3e-6 * tmpl
 

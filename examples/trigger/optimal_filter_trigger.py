@@ -17,9 +17,9 @@ import tempfile
 import numpy as np
 import yaml
 
-from detprocess_tpu import Noise, TriggerProcessing
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
+from detprocess_jax import Noise, TriggerProcessing
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT, PRETRIG = 4096, 1024

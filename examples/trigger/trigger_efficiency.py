@@ -30,12 +30,12 @@ import numpy as np
 import yaml
 from scipy import stats
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, trigger as trig_ops
-from detprocess_tpu.pipelines.salting import Salting, salt_efficiency
-from detprocess_tpu.pipelines.triggers import TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, trigger as trig_ops
+from detprocess_jax.pipelines.salting import Salting, salt_efficiency
+from detprocess_jax.pipelines.triggers import TriggerProcessing
 
 FS = 1.25e6
 NT = 4096

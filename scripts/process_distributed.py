@@ -13,11 +13,11 @@ Usage (under srun / or standalone with --node_num/--nb_nodes):
 import os
 import sys
 
-from detprocess_tpu import cli
-from detprocess_tpu.io.rawdata import (RawData, series_number_to_name,
+from detprocess_jax import cli
+from detprocess_jax.io.rawdata import (RawData, series_number_to_name,
                                        series_to_number)
-from detprocess_tpu.parallel import multihost
-from detprocess_tpu.utils.misc import create_series_name
+from detprocess_jax.parallel import multihost
+from detprocess_jax.utils.misc import create_series_name
 
 
 def main(argv=None):
@@ -60,12 +60,12 @@ def main(argv=None):
         # same on every node or skewed launches still collide (node 0
         # starting one second after node 1 lands on node 1's name), so
         # the launcher exports one base for the whole job
-        # (DETPROC_TPU_BASE_SERIES, set by scripts/slurm_processing.sh
+        # (DETPROC_BASE_SERIES, set by scripts/slurm_processing.sh
         # at submission); per-node clocks are only a fallback.
         node_num = args.node_num
         if node_num is None:
             node_num = int(os.environ.get("SLURM_PROCID", 0))
-        base_name = os.environ.get("DETPROC_TPU_BASE_SERIES")
+        base_name = os.environ.get("DETPROC_BASE_SERIES")
         if base_name is not None and "_" in base_name:
             # the launcher only supplies a shared TIMESTAMP; the
             # facility digit follows this job's --facility (the shell
@@ -77,7 +77,7 @@ def main(argv=None):
             base_name = create_series_name(args.facility)
             if (args.nb_nodes or int(os.environ.get("SLURM_NTASKS",
                                                     0) or 1)) > 1:
-                print("WARNING: DETPROC_TPU_BASE_SERIES not set — "
+                print("WARNING: DETPROC_BASE_SERIES not set — "
                       "deriving the output series base from this "
                       "node's clock; nodes launched with sub-minute "
                       "skew can still collide. Export one base series "

@@ -1,6 +1,6 @@
 """Generate a filter-file fixture with RAW h5py calls only.
 
-This script deliberately does NOT import detprocess_tpu: the fixture is
+This script deliberately does NOT import detprocess_jax: the fixture is
 an independently-authored rendering of the documented filter-file layout
 (reference: detprocess/core/filterdata.py:218-302, 604-633 — channel
 groups holding ``{param}_{tag}`` entries; pd.Series payloads as

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Generate a pytesdaq-style raw HDF5 fixture with bare h5py.
 
-This script deliberately never imports detprocess_tpu: it writes the
+This script deliberately never imports detprocess_jax: it writes the
 documented raw layout (see docs/MIGRATION.md "Raw-data layout") the way
 an independent DAQ would, so tests/test_rawdata_interop.py proves the
 reader against the documented contract, not against RawWriter.

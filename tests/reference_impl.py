@@ -3,7 +3,7 @@
 This plays the role of the reference's QETpy numerics for golden tests (the
 real QETpy is not installed here): written directly from the matched-filter
 formulas, one event at a time, in float64 — deliberately *not* sharing code
-with detprocess_tpu so that agreement is meaningful. It is also used by
+with detprocess_jax so that agreement is meaningful. It is also used by
 bench.py as the "single CPU core, per-event loop" baseline, standing in for
 the reference's per-event processing path
 (detprocess/process/features.py:533-851).

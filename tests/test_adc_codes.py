@@ -17,9 +17,9 @@ import pandas as pd
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawReader, RawWriter
-from detprocess_tpu.models import pulse
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawReader, RawWriter
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT = 1024
@@ -137,7 +137,7 @@ class TestWriterReader:
 
 class TestTriggerPipelineParity:
     def test_int16_equals_float32(self, dataset):
-        from detprocess_tpu.pipelines.triggers import TriggerProcessing
+        from detprocess_jax.pipelines.triggers import TriggerProcessing
 
         dfs = {}
         for key in ("int_files", "float_files"):
@@ -165,8 +165,8 @@ class TestTriggerPipelineParity:
 
         if len(jax.devices()) < 2:
             pytest.skip("needs the virtual multi-device CPU mesh")
-        from detprocess_tpu.parallel.mesh import make_mesh
-        from detprocess_tpu.pipelines.triggers import TriggerProcessing
+        from detprocess_jax.parallel.mesh import make_mesh
+        from detprocess_jax.pipelines.triggers import TriggerProcessing
 
         proc = TriggerProcessing(dataset["int_files"],
                                  dataset["config_path"],
@@ -182,7 +182,7 @@ class TestTriggerPipelineParity:
                                    sm["trigger_amplitude"], rtol=1e-6)
 
     def test_salted_path_still_host_converts(self, dataset):
-        from detprocess_tpu.pipelines.triggers import TriggerProcessing
+        from detprocess_jax.pipelines.triggers import TriggerProcessing
 
         proc = TriggerProcessing(dataset["int_files"],
                                  dataset["config_path"],
@@ -249,7 +249,7 @@ class TestFeaturePipelineParity:
                     filter_path=filter_path, amps=amps)
 
     def test_int16_equals_float32(self, feature_dataset):
-        from detprocess_tpu.pipelines.features import FeatureProcessing
+        from detprocess_jax.pipelines.features import FeatureProcessing
 
         out = {}
         for key, files in feature_dataset["dirs"].items():
@@ -267,7 +267,7 @@ class TestFeaturePipelineParity:
 
     def test_float64_runs_keep_host_conversion(self, feature_dataset):
         # the golden-precision path must not switch to f32 device convert
-        from detprocess_tpu.pipelines.features import FeatureProcessing
+        from detprocess_jax.pipelines.features import FeatureProcessing
 
         files = feature_dataset["dirs"]["int16"]
         proc = FeatureProcessing(

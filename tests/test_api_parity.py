@@ -5,9 +5,9 @@ utils/arg_utils.py) and that a migrating user will reach for."""
 import numpy as np
 import pytest
 
-from detprocess_tpu.io.rawdata import (
+from detprocess_jax.io.rawdata import (
     RawData, RawWriter, series_to_number, series_number_to_name)
-from detprocess_tpu.utils.misc import build_range_str, hyphen_range, twopole
+from detprocess_jax.utils.misc import build_range_str, hyphen_range, twopole
 
 FS = 1.25e6
 N = 4096
@@ -137,7 +137,7 @@ class TestRawDataAccessors:
 
 class TestNoiseAccessors:
     def test_offset_and_fs(self, tmp_path):
-        from detprocess_tpu.pipelines.noise import Noise
+        from detprocess_jax.pipelines.noise import Noise
         rng = np.random.default_rng(5)
         L = 50000
         traces = rng.standard_normal((4, 2, L)) * 2e-6 + 3e-5
@@ -175,7 +175,7 @@ class TestNoiseModelSetters:
         return ssp, bias
 
     def test_stored_defaults_drive_analyze_noise(self):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         nm = NoiseModel(verbose=False)
         ssp, bias = self._ssp_bias()
         nm.set_iv_didv_results_from_dict(
@@ -197,7 +197,7 @@ class TestNoiseModelSetters:
             nm.get_noise_data()
 
     def test_missing_rn_rejected(self):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         nm = NoiseModel(verbose=False)
         ssp, _ = self._ssp_bias()
         with pytest.raises(ValueError, match="No Rn"):
@@ -206,7 +206,7 @@ class TestNoiseModelSetters:
                 ivsweep_results={"rp": 4e-3, "rshunt": 5e-3})
 
     def test_state_psd_slot_and_validation(self):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         nm = NoiseModel(verbose=False)
         n = 256
         psd = np.ones(n)
@@ -226,7 +226,7 @@ class TestNoiseModelSetters:
         assert nm.get_psd("chan1", tag="kw") is not None
 
     def test_fit_results_setters(self):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         nm = NoiseModel(verbose=False)
         nm.set_normal_fit_results("chan1", squiddc=6e-12, squidpole=200.0,
                                   squidn=0.7)
@@ -242,7 +242,7 @@ class TestNoiseModelSetters:
             nm.set_inductance("chan1", 4e-7, "transition")
 
     def test_squid_noise_setter_feeds_analyze(self):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         nm = NoiseModel(verbose=False)
         ssp, bias = self._ssp_bias()
         freqs = np.linspace(100.0, 1e5, 200)
@@ -255,14 +255,14 @@ class TestNoiseModelSetters:
         np.testing.assert_allclose(sim_n["s_isquid"], squid)
 
     def test_squid_fit_formula(self):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         freqs = np.array([100.0, 1000.0])
         out = NoiseModel.get_squid_noise_from_fit(freqs, 6e-12, 200.0, 0.7)
         want = (6e-12 * (1 + (200.0 / freqs) ** 0.7)) ** 2
         np.testing.assert_allclose(out, want)
 
     def test_roundtrip_through_file(self, tmp_path):
-        from detprocess_tpu.pipelines.noisemodel import NoiseModel
+        from detprocess_jax.pipelines.noisemodel import NoiseModel
         ssp, bias = self._ssp_bias()
         nm = NoiseModel(verbose=False)
         nm.set_iv_didv_results_from_dict(
@@ -291,7 +291,7 @@ class TestEventBuilderSurface:
         })
 
     def test_trigger_object_registry(self):
-        from detprocess_tpu.pipelines.triggers import EventBuilder
+        from detprocess_jax.pipelines.triggers import EventBuilder
         eb = EventBuilder()
         obj = object()
         eb.add_trigger_object("chan1", obj)
@@ -302,7 +302,7 @@ class TestEventBuilderSurface:
             eb.get_trigger_object("nope")
 
     def test_add_trigger_data_unique_per_channel(self):
-        from detprocess_tpu.pipelines.triggers import EventBuilder
+        from detprocess_jax.pipelines.triggers import EventBuilder
         eb = EventBuilder()
         eb.add_trigger_data("chan1", self._mk_df("chan1", [100, 5000]))
         eb.add_trigger_data("chan2", self._mk_df("chan2", [900]))
@@ -316,7 +316,7 @@ class TestEventBuilderSurface:
         eb.add_trigger_data("chan1", self._mk_df("chan1", [7]))
 
     def test_acquire_triggers_with_callable_engine(self):
-        from detprocess_tpu.pipelines.triggers import EventBuilder
+        from detprocess_jax.pipelines.triggers import EventBuilder
         eb = EventBuilder()
         seen = {}
 
@@ -337,7 +337,7 @@ class TestEventBuilderSurface:
 
 class TestRandomsAccessors:
     def test_paths_and_series_dict(self, rawgroup):
-        from detprocess_tpu.pipelines.randoms import Randoms
+        from detprocess_jax.pipelines.randoms import Randoms
         import glob, os
         files = sorted(glob.glob(os.path.join(rawgroup["root"], "*.hdf5")))
         r = Randoms(files, verbose=False)
@@ -355,7 +355,7 @@ class TestRandomsAccessors:
         """{group}/{series}/*.hdf5 layout (the RawData._build_file_map
         fallback): the group is one level above the series directory
         (regression: the series dir was reported as the group)."""
-        from detprocess_tpu.pipelines.randoms import Randoms
+        from detprocess_jax.pipelines.randoms import Randoms
         import glob, os, shutil
         group = tmp_path / "run13_group2"
         ser = rawgroup["series"][0]
@@ -368,7 +368,7 @@ class TestRandomsAccessors:
         assert r.get_base_path() == str(tmp_path)
 
     def test_output_path_recorded(self, rawgroup, tmp_path):
-        from detprocess_tpu.pipelines.randoms import Randoms
+        from detprocess_jax.pipelines.randoms import Randoms
         import glob, os
         files = sorted(glob.glob(os.path.join(rawgroup["root"], "*.hdf5")))
         r = Randoms(files, verbose=False)
@@ -381,7 +381,7 @@ class TestRandomsAccessors:
 
 class TestFilterDataSurface:
     def test_verbose_property(self):
-        from detprocess_tpu.io.filterfile import FilterData
+        from detprocess_jax.io.filterfile import FilterData
         fd = FilterData(verbose=False)
         assert fd.verbose is False
         fd.verbose = True
@@ -389,7 +389,7 @@ class TestFilterDataSurface:
 
     def test_set_ivsweep_data_from_dict(self):
         import pandas as pd
-        from detprocess_tpu.io.filterfile import FilterData
+        from detprocess_jax.io.filterfile import FilterData
         fd = FilterData(verbose=False)
         df1 = pd.DataFrame({"tes_bias": [1e-6, 2e-6]})
         fd.set_ivsweep_data_from_dict({"chan1": df1, "chan2": df1},
@@ -400,7 +400,7 @@ class TestFilterDataSurface:
 
 class TestTemplateSurface:
     def _template(self):
-        from detprocess_tpu.pipelines.template import Template
+        from detprocess_jax.pipelines.template import Template
         t = Template(verbose=False)
         t.create_template("chan1", FS, trace_length_samples=1024,
                           pretrigger_length_samples=512, A=1.0,
@@ -454,8 +454,8 @@ class TestTemplateSurface:
 
 class TestSaltingAccessors:
     def test_dm_sampling_and_splits(self):
-        from detprocess_tpu.pipelines.salting import Salting
-        from detprocess_tpu.io.filterfile import FilterData
+        from detprocess_jax.pipelines.salting import Salting
+        from detprocess_jax.io.filterfile import FilterData
         s = Salting(FilterData(verbose=False), verbose=False)
         assert s.get_dataframe() is None
         assert s.get_injectiontimes() is None
@@ -486,9 +486,9 @@ class TestSaltingAccessors:
         assert all(all(v == 1 for v in p) for p in ones)
 
     def test_set_raw_data(self, rawgroup):
-        from detprocess_tpu.pipelines.salting import Salting
-        from detprocess_tpu.io.filterfile import FilterData
-        from detprocess_tpu.io.rawdata import RawData
+        from detprocess_jax.pipelines.salting import Salting
+        from detprocess_jax.io.filterfile import FilterData
+        from detprocess_jax.io.rawdata import RawData
         s = Salting(FilterData(verbose=False), verbose=False)
         s.set_raw_data(rawgroup["root"])
         assert s.get_sample_rate() == FS
@@ -503,7 +503,7 @@ class TestSaltingAccessors:
 
 class TestFiltergenAliases:
     def test_proces_aliases_dispatch(self, monkeypatch):
-        from detprocess_tpu.pipelines.filtergen import FilterDataProcessing
+        from detprocess_jax.pipelines.filtergen import FilterDataProcessing
         calls = []
 
         def fake_process(self, channels=None, enable_noise=True,

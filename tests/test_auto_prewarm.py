@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines.triggers import TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines.triggers import TriggerProcessing
 
 FS = 1.25e6
 NT, PRE = 512, 128
@@ -62,7 +62,7 @@ def test_opt_outs(setup, monkeypatch):
     tp = TriggerProcessing(files, cpath, filter_data=fd, verbose=False,
                            auto_prewarm=False)
     assert tp._prewarm_thread is None
-    monkeypatch.setenv("DETPROC_TPU_AUTO_PREWARM", "0")
+    monkeypatch.setenv("DETPROC_AUTO_PREWARM", "0")
     tp2 = TriggerProcessing(files, cpath, filter_data=fd, verbose=False)
     assert tp2._prewarm_thread is None
 
@@ -113,7 +113,7 @@ def test_feature_prewarm_compiles_group_fns(setup, monkeypatch,
     default batch shape — the jit cache is warm before process()."""
     import jax
 
-    from detprocess_tpu.pipelines.features import FeatureProcessing
+    from detprocess_jax.pipelines.features import FeatureProcessing
 
     files, cpath, fd = setup
     fcfg = {"feature": {"trace_length_samples": NT,

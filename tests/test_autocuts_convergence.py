@@ -17,7 +17,7 @@ PSDs and dIdV fits downstream. These tests check:
 import numpy as np
 import jax.numpy as jnp
 
-from detprocess_tpu.ops import autocuts
+from detprocess_jax.ops import autocuts
 
 
 def _numpy_reference_mask(metrics, nsigma):

@@ -1,17 +1,19 @@
 """Tests for the CLI driver and the filter-generation pipeline."""
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import yaml
 
-from detprocess_tpu import cli
-from detprocess_tpu.io import tables
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines.filtergen import FilterDataProcessing
+from detprocess_jax import cli
+from detprocess_jax.io import tables
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines.filtergen import FilterDataProcessing
 
 FS = 1.25e6
 NT = 2048
@@ -146,26 +148,29 @@ def test_filtergen_by_series(tmp_path):
     assert 2.5 < ratio < 6.0, ratio
 
 
-def test_cli_prewarm_compiles_without_saving(rawgroup, tmp_path,
-                                             monkeypatch):
+def test_cli_prewarm_compiles_without_saving(rawgroup, tmp_path):
     """--prewarm runs the enabled workloads through a few events to
     populate the persistent executable cache but writes NO output
     dumps (the production cold-start story: run once after a config
     change, then real runs start warm)."""
+    # a fresh process: JAX sets its persistent cache up once per process,
+    # so after earlier tests in this worker have compiled, pointing the
+    # cache somewhere new in-process would write nothing
     cachedir = str(tmp_path / "xla")
-    monkeypatch.setenv("DETPROC_TPU_COMPILE_CACHE", "1")
-    monkeypatch.setenv("DETPROC_TPU_COMPILE_CACHE_DIR", cachedir)
-    from detprocess_tpu.utils import jaxcache
-    jaxcache._state.update(resolved=False, path=None)
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=cachedir,
+               JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
     out = str(tmp_path / "processed")
-    rc = cli.main([
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([
+        sys.executable, "-m", "detprocess_jax.cli",
         "--raw_path", rawgroup["raw"],
         "--processing_setup", rawgroup["cpath"],
         "--filter_file", rawgroup["fpath"],
         "--output_group_path", out,
         "--enable-trig", "--enable-feature", "--prewarm",
-    ])
-    assert rc == 0
+    ], cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    rc = r.returncode
+    assert rc == 0, r.stderr[-2000:]
     for sub in ("trigger", "feature"):
         d = os.path.join(out, sub)
         dumps = [f for f in os.listdir(d)] if os.path.isdir(d) else []

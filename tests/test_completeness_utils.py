@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import pandas as pd
 import pytest
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse, tesnoise
-from detprocess_tpu.ops import filterbank, trigger
-from detprocess_tpu.pipelines.merge import merge_feature_tables
-from detprocess_tpu.pipelines.noisemodel import NoiseModel
-from detprocess_tpu.pipelines.ivsweep import discover_bias_points
-from detprocess_tpu.pipelines.triggers import get_trigger_template_info
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse, tesnoise
+from detprocess_jax.ops import filterbank, trigger
+from detprocess_jax.pipelines.merge import merge_feature_tables
+from detprocess_jax.pipelines.noisemodel import NoiseModel
+from detprocess_jax.pipelines.ivsweep import discover_bias_points
+from detprocess_jax.pipelines.triggers import get_trigger_template_info
 
 FS = 1.25e6
 
@@ -114,7 +114,7 @@ class TestNormalNoiseFit:
         np.testing.assert_allclose(out["tload"], tload_true, rtol=0.3)
 
     def test_flatten_psd_and_make_decreasing(self):
-        from detprocess_tpu.pipelines.noisemodel import (flatten_psd,
+        from detprocess_jax.pipelines.noisemodel import (flatten_psd,
                                                          make_decreasing)
         y = np.array([5.0, 3.0, 4.0, 2.0, 6.0])
         np.testing.assert_allclose(make_decreasing(y),

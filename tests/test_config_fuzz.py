@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import yaml
 
-from detprocess_tpu.config import YamlConfig
-from detprocess_tpu.config.yamlconfig import (
+from detprocess_jax.config import YamlConfig
+from detprocess_jax.config.yamlconfig import (
     convert_length_msec_to_samples)
 
 FS = 1.25e6
@@ -148,10 +148,10 @@ def test_fuzzed_config_compiles_and_emits_all_columns(tmp_path, seed):
     reference semantics this pins is that nothing enabled is silently
     dropped between yaml and output (process/config.py:409-641 +
     features.py:747-846)."""
-    from detprocess_tpu.io.filterfile import FilterData
-    from detprocess_tpu.io.rawdata import RawWriter
-    from detprocess_tpu.models import pulse
-    from detprocess_tpu.pipelines.features import FeatureProcessing
+    from detprocess_jax.io.filterfile import FilterData
+    from detprocess_jax.io.rawdata import RawWriter
+    from detprocess_jax.models import pulse
+    from detprocess_jax.pipelines.features import FeatureProcessing
 
     rng = np.random.default_rng(1000 + seed)
     cfg, expected, (nt, pre) = _fuzz_config(rng)

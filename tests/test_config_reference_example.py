@@ -14,7 +14,7 @@ import tempfile
 
 import yaml
 
-from detprocess_tpu.config.yamlconfig import YamlConfig
+from detprocess_jax.config.yamlconfig import YamlConfig
 
 FS = 1.25e6
 CHANS = ["det1", "det2", "det3", "det4"]

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import tesnoise, pulse
-from detprocess_tpu.pipelines.didv import DIDVAnalysis
-from detprocess_tpu.pipelines.template import Template, FilterBuilder
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import tesnoise, pulse
+from detprocess_jax.pipelines.didv import DIDVAnalysis
+from detprocess_jax.pipelines.template import Template, FilterBuilder
 
 FS = 1.25e6
 RSH, RP = 5e-3, 4e-3

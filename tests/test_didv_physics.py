@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.ops import lm, lockin, of1x1, filterbank
-from detprocess_tpu.models import didv, ivbias, tesnoise, pulse
+from detprocess_jax.ops import lm, lockin, of1x1, filterbank
+from detprocess_jax.models import didv, ivbias, tesnoise, pulse
 
 
 class TestLM:

@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines.features import FeatureProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines.features import FeatureProcessing
 
 from reference_impl import generate_noise
 

@@ -20,11 +20,11 @@ import pandas as pd
 import pytest
 import yaml
 
-from detprocess_tpu import cli
-from detprocess_tpu.io import tables
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
+from detprocess_jax import cli
+from detprocess_jax.io import tables
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
 
 FS = 1.25e6
 NT, PRE = 512, 128
@@ -112,7 +112,7 @@ def test_two_process_distributed_equals_single(setup, tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     # one shared base series for the job, like the SLURM launcher —
     # per-node clocks would make node uniqueness depend on launch skew
-    env["DETPROC_TPU_BASE_SERIES"] = "I1_D20260820_T270000"
+    env["DETPROC_BASE_SERIES"] = "I1_D20260820_T270000"
     procs = []
     for node in range(2):
         procs.append(subprocess.Popen(
@@ -133,7 +133,7 @@ def test_two_process_distributed_equals_single(setup, tmp_path):
     assert len(dist_files) == 2, dist_files
     out_series = {"I" + f.rsplit("_F", 1)[0].rsplit("_I", 1)[-1]
                   for f in dist_files}
-    # base from DETPROC_TPU_BASE_SERIES + node_num offsets — exact, not
+    # base from DETPROC_BASE_SERIES + node_num offsets — exact, not
     # merely distinct (clock-derived bases collide under launch skew)
     assert out_series == {"I1_D20260820_T270000",
                           "I1_D20260820_T270001"}, \

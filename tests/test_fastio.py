@@ -12,8 +12,8 @@ import h5py
 import numpy as np
 import pytest
 
-from detprocess_tpu.io import fastio
-from detprocess_tpu.io.rawdata import RawReader, RawWriter
+from detprocess_jax.io import fastio
+from detprocess_jax.io.rawdata import RawReader, RawWriter
 
 FS = 1.25e6
 

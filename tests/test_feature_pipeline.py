@@ -14,11 +14,11 @@ import pandas as pd
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawReader, RawWriter, RawData
-from detprocess_tpu.io import tables
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines.features import FeatureProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawReader, RawWriter, RawData
+from detprocess_jax.io import tables
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines.features import FeatureProcessing
 
 from reference_impl import RefOF1x1, generate_noise
 
@@ -278,7 +278,7 @@ def test_batch_invariance(dataset):
 def test_resume_from_dumps(dataset, tmp_path):
     """resume=True continues after existing dumps: identical table to a
     single uninterrupted run, no duplicated events."""
-    from detprocess_tpu.io import tables
+    from detprocess_jax.io import tables
     import glob
 
     out1 = str(tmp_path / "full")
@@ -323,7 +323,7 @@ def test_resume_from_dumps(dataset, tmp_path):
 def test_nb_events_per_dump(dataset, tmp_path):
     """Dump files contain nb_events_per_dump rows regardless of batch
     size (reference features.py:593-626 semantics)."""
-    from detprocess_tpu.io import tables
+    from detprocess_jax.io import tables
     import glob
 
     out = str(tmp_path / "dumps")
@@ -342,7 +342,7 @@ def test_nb_events_per_dump(dataset, tmp_path):
 def test_memory_limit_dumping(dataset, tmp_path):
     """memory_limit flushes dumps when the pending frames exceed the
     byte budget (reference features.py:283-380 semantics)."""
-    from detprocess_tpu.io import tables
+    from detprocess_jax.io import tables
     import glob
 
     out = str(tmp_path / "mem")

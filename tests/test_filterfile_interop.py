@@ -2,7 +2,7 @@
 
 tests/fixtures/filter_fixture.h5 is generated by
 tests/fixtures/make_filter_fixture.py with RAW h5py calls (no
-detprocess_tpu imports), rendering the documented layout of the
+detprocess_jax imports), rendering the documented layout of the
 reference filter file (detprocess/core/filterdata.py:218-302, 604-633:
 channel groups of ``{param}_{tag}`` entries, pd.Series as values+index,
 per-parameter ``_metadata``). This breaks any accidental writer↔reader
@@ -19,7 +19,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from detprocess_tpu.io.filterfile import FilterData
+from detprocess_jax.io.filterfile import FilterData
 
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 import yaml
 
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse, tesnoise
-from detprocess_tpu.pipelines.filtergen import FilterDataProcessing
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse, tesnoise
+from detprocess_jax.pipelines.filtergen import FilterDataProcessing
 
 FS = 1.25e6
 RSH, RP, RN = 5e-3, 4e-3, 0.30

@@ -29,7 +29,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.ops import filterbank, of1x1, spectral
+from detprocess_jax.ops import filterbank, of1x1, spectral
 
 
 FS = 1.0e6
@@ -128,7 +128,7 @@ PRETRIG = 1024
 
 @pytest.fixture(scope="module")
 def white_bank():
-    from detprocess_tpu.models import pulse
+    from detprocess_jax.models import pulse
 
     template = pulse.make_template(FS, N, PRETRIG, A=1.0, tau_r=20e-6,
                                    tau_f1=200e-6)
@@ -249,11 +249,11 @@ def test_nxm_diagonal_csd_decouples_to_1x1():
     orthogonal per-channel templates the amplitudes equal the independent
     1x1 estimates — a structural identity of the weight matrix, not a
     property of this implementation."""
-    from detprocess_tpu.ops import ofnxm
+    from detprocess_jax.ops import ofnxm
 
     n = 512
     pre = 128
-    from detprocess_tpu.models import pulse as pl
+    from detprocess_jax.models import pulse as pl
 
     t1 = pl.make_template(FS, n, pre, A=1.0, tau_r=10e-6, tau_f1=50e-6)
     t2 = pl.make_template(FS, n, pre, A=1.0, tau_r=40e-6, tau_f1=300e-6)
@@ -298,11 +298,11 @@ def test_nxm_diagonal_csd_decouples_to_1x1():
 def test_nxm_delta_chi2_distribution():
     """On pure noise, Δχ² = qᵀW⁻¹q at a fixed delay is χ²_M distributed:
     mean M, var 2M — textbook quadratic-form statistics."""
-    from detprocess_tpu.ops import ofnxm
+    from detprocess_jax.ops import ofnxm
 
     n = 1024
     pre = 256
-    from detprocess_tpu.models import pulse as pl
+    from detprocess_jax.models import pulse as pl
 
     templates = np.stack([
         pl.make_template(FS, n, pre, A=1.0, tau_r=10e-6, tau_f1=60e-6),

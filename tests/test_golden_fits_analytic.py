@@ -35,8 +35,8 @@ inductance L, thermal time τ0 = C/G):
 
 import numpy as np
 
-from detprocess_tpu.models import didv as didv_models
-from detprocess_tpu.models import ivbias, tesnoise
+from detprocess_jax.models import didv as didv_models
+from detprocess_jax.models import ivbias, tesnoise
 
 KB = 1.380649e-23
 

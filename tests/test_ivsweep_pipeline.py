@@ -6,13 +6,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import didv as didv_models
-from detprocess_tpu.models import tesnoise
-from detprocess_tpu.pipelines.ivsweep import IVSweepProcessing, IVSweepAnalysis
-from detprocess_tpu.pipelines.noisemodel import NoiseModel
-from detprocess_tpu.pipelines.didv import DIDVAnalysis
-from detprocess_tpu.ops import lockin
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import didv as didv_models
+from detprocess_jax.models import tesnoise
+from detprocess_jax.pipelines.ivsweep import IVSweepProcessing, IVSweepAnalysis
+from detprocess_jax.pipelines.noisemodel import NoiseModel
+from detprocess_jax.pipelines.didv import DIDVAnalysis
+from detprocess_jax.ops import lockin
 
 FS = 1.25e6
 RSH = 5e-3
@@ -213,7 +213,7 @@ def test_didv_ibis_disagreement_warns(processed, capsys):
 
 
 def test_energy_resolution_curve(processed, sweep):
-    from detprocess_tpu.models import pulse
+    from detprocess_jax.models import pulse
     proc, df = processed
     ana = IVSweepAnalysis(verbose=False)
     ana.set_data_from_dataframe("chan1", df, rsh=RSH)
@@ -290,7 +290,7 @@ def test_noise_model_chain(processed, sweep):
 def test_ibis_errors_finite_on_sc_branch():
     """Exact-partials error propagation: r0_err/p0_err stay finite on the
     SC branch (v0 ≈ 0), and an explicit rp carries zero uncertainty."""
-    from detprocess_tpu.models import ivbias
+    from detprocess_jax.models import ivbias
 
     rng = np.random.default_rng(0)
     rsh, rp, rn = 5e-3, 4e-3, 0.3
@@ -318,7 +318,7 @@ def test_reference_accessor_surface(processed, sweep):
     """Reference-parity accessors (ivsweep.py:93-146, :192-331,
     :829-928, :1200-1230): dict setters, per-channel readout params,
     state-filtered fit drivers, and result getters."""
-    from detprocess_tpu.models import pulse
+    from detprocess_jax.models import pulse
     proc, df = processed
     ana = IVSweepAnalysis(verbose=False)
     # dict-based data entry + rshunt/rp setters with list broadcast

@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, trigger as trig
-from detprocess_tpu.parallel import mesh as pmesh
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, trigger as trig
+from detprocess_jax.parallel import mesh as pmesh
 
 
 FS = 1.25e6

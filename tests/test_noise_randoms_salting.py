@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import pytest
 import pandas as pd
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import autocuts
-from detprocess_tpu.pipelines.randoms import Randoms
-from detprocess_tpu.pipelines.noise import Noise
-from detprocess_tpu.pipelines.salting import Salting, sample_from_pdf
-from detprocess_tpu.pipelines.triggers import TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import autocuts
+from detprocess_jax.pipelines.randoms import Randoms
+from detprocess_jax.pipelines.noise import Noise
+from detprocess_jax.pipelines.salting import Salting, sample_from_pdf
+from detprocess_jax.pipelines.triggers import TriggerProcessing
 import yaml
 
 FS = 1.25e6
@@ -151,7 +151,7 @@ class TestSalting:
         """DM PDF file ({mass: {'dmrate': fn}} cloudpickle) sampling
         (salting.py:326-338): per-mass energies + mass column."""
         import cloudpickle
-        from detprocess_tpu.pipelines.salting import sample_pdf_function
+        from detprocess_jax.pipelines.salting import sample_pdf_function
 
         rng = np.random.default_rng(3)
         samples = sample_pdf_function(lambda x: np.exp(-x / 0.1),
@@ -254,7 +254,7 @@ class TestSalting:
         """Salts must be re-injected during feature extraction too
         (reference processing_data.py:539-553): the OF amplitude of a
         salt trigger should recover the salt amplitude, not noise."""
-        from detprocess_tpu.pipelines.features import FeatureProcessing
+        from detprocess_jax.pipelines.features import FeatureProcessing
 
         nt, pretrig = 4096, 1024
         tmpl = pulse.make_template(FS, nt, pretrig, A=1.0, tau_r=20e-6,
@@ -340,7 +340,7 @@ def test_sample_from_pdf_bin_width_aware():
     """A flat dR/dE on a LOG-spaced grid is uniform in E: the CDF must
     integrate with bin widths, not weight by array index (which would
     oversample low energies by orders of magnitude)."""
-    from detprocess_tpu.pipelines.salting import sample_from_pdf
+    from detprocess_jax.pipelines.salting import sample_from_pdf
 
     rng = np.random.default_rng(0)
     energies = np.geomspace(1.0, 1000.0, 200)

@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, of1x1
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, of1x1
 
 from reference_impl import RefOF1x1, generate_noise
 

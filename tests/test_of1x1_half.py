@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, of1x1
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, of1x1
 
 FS = 1.25e6
 N = 8192
@@ -132,7 +132,7 @@ def test_constrained_window_randomized():
     """Window-constrained delay fits exact vs the loop oracle across
     random geometries and windows."""
     import jax
-    from detprocess_tpu.models import pulse as pulse_mod
+    from detprocess_jax.models import pulse as pulse_mod
     from reference_impl import RefOF1x1, generate_noise
 
     rng = np.random.default_rng(11)
@@ -172,7 +172,7 @@ def test_withdelay_half_odd_length():
     """Odd trace lengths: the half path must be told n explicitly (the
     2*(nh-1) reconstruction only holds for even n)."""
     import numpy as np
-    from detprocess_tpu.models import pulse as pl
+    from detprocess_jax.models import pulse as pl
 
     fs = 1.25e6
     n = 1025

@@ -13,8 +13,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, of1x1
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, of1x1
 
 
 FS = 1.25e6
@@ -165,11 +165,9 @@ def test_positive_window_beyond_half_n(banks):
 
 
 def test_of1x2_half_equals_full(banks):
-    """The half-spectrum joint kernel (packed Hermitian-product irffts,
-    delay-order core) equals the full-spectrum kernel — natural layout
-    (N small, no perm) AND the permuted layout at a four-step size."""
-    from detprocess_tpu.ops import fft as dfft
-
+    """The half-spectrum joint kernel (Hermitian-product irffts,
+    delay-order core) equals the full-spectrum kernel — at a small N and
+    at a production-size N."""
     t1, t2, b1, b2 = banks
     rng = np.random.default_rng(3)
     traces = rng.standard_normal((4, N)) * 1e-8
@@ -193,11 +191,8 @@ def test_of1x2_half_equals_full(banks):
         bin_w = np.full(nh, 2.0)
         bin_w[0] = 1.0
         bin_w[-1] = 1.0
-        hp = dfft.site_half_perm_indices(nlen, "feature")
-        sl = np.arange(nh) if hp is None else hp
-        vr = (of1x1.signal_rfft_perm(jnp.asarray(trc)[:, None, :])
-              if hp is not None
-              else of1x1.signal_rfft(jnp.asarray(trc)[:, None, :]))
+        sl = np.arange(nh)
+        vr = of1x1.signal_rfft(jnp.asarray(trc)[:, None, :])
         half = of1x1.of1x2_half(
             vr,
             jnp.asarray(bb1.phi[:, sl]), jnp.asarray(bb1.norm),
@@ -209,9 +204,7 @@ def test_of1x2_half_equals_full(banks):
             np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                        rtol=1e-8, atol=1e-20)
 
-    # natural small-N layout
     run_pair(N, t1, t2, traces, np.arange(0, 80))
-    # permuted four-step layout
     n2 = 16384
     tt1 = pulse.make_template(FS, n2, n2 // 2, A=1.0, tau_r=10e-6,
                               tau_f1=60e-6)
@@ -219,12 +212,4 @@ def test_of1x2_half_equals_full(banks):
                               tau_f1=400e-6)
     tr2 = rng.standard_normal((2, n2)) * 1e-8
     tr2 += 3e-6 * tt1 + 2e-6 * np.roll(tt2, 50)
-    assert dfft.half_perm_indices(n2) is not None
-    # the feature site defaults to natural order (on-chip A/B verdict);
-    # force it on so the permuted of1x2 layout keeps coverage
-    old = dfft.PERM_SITES["feature"]
-    dfft.PERM_SITES["feature"] = True
-    try:
-        run_pair(n2, tt1, tt2, tr2, np.arange(0, 100))
-    finally:
-        dfft.PERM_SITES["feature"] = old
+    run_pair(n2, tt1, tt2, tr2, np.arange(0, 100))

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, ofnxm, of1x1
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, ofnxm, of1x1
 
 from reference_impl import RefOFNxM, generate_correlated_noise
 

@@ -7,10 +7,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines.oftrigger import (OptimumFilterTrigger,
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines.oftrigger import (OptimumFilterTrigger,
                                                 combine_trigger_data)
-from detprocess_tpu.pipelines.triggers import EventBuilder
+from detprocess_jax.pipelines.triggers import EventBuilder
 
 FS = 1.25e6
 NT = 1024
@@ -304,9 +304,9 @@ def test_object_matches_batched_pipeline(setup, tmp_path):
     (find_triggers_tiled) must find the SAME triggers on the same trace
     — two independent merge implementations over one FIR kernel."""
     import yaml
-    from detprocess_tpu.io.filterfile import FilterData
-    from detprocess_tpu.io.rawdata import RawData, RawWriter
-    from detprocess_tpu.pipelines.triggers import TriggerProcessing
+    from detprocess_jax.io.filterfile import FilterData
+    from detprocess_jax.io.rawdata import RawData, RawWriter
+    from detprocess_jax.pipelines.triggers import TriggerProcessing
 
     tmpl, psd, _, _ = setup
     rng = np.random.default_rng(33)

@@ -14,12 +14,12 @@ import pandas as pd
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.parallel import mesh as pmesh
-from detprocess_tpu.pipelines.features import FeatureProcessing
-from detprocess_tpu.pipelines.triggers import TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.parallel import mesh as pmesh
+from detprocess_jax.pipelines.features import FeatureProcessing
+from detprocess_jax.pipelines.triggers import TriggerProcessing
 
 FS = 1.25e6
 NT = 1024
@@ -114,8 +114,8 @@ def test_cli_mesh_devices_chain(dataset, tmp_path):
     """--mesh-devices routes the CLI trigger+feature chain through the
     sharded pipeline path (virtual 8-device CPU mesh)."""
     import os
-    from detprocess_tpu import cli
-    from detprocess_tpu.io import tables
+    from detprocess_jax import cli
+    from detprocess_jax.io import tables
 
     raw_dir = os.path.dirname(dataset["raw_files"][0])
     fpath = str(tmp_path / "filter.h5")
@@ -151,7 +151,7 @@ def test_noise_mesh_equals_single(dataset):
     """Noise.calc_psd/calc_csd with mesh= (psum spectral mean over the
     virtual 8-device mesh, zero-padded batch) equal the single-device
     estimates."""
-    from detprocess_tpu.pipelines.noise import Noise
+    from detprocess_jax.pipelines.noise import Noise
 
     mesh = pmesh.make_mesh(8)
 

@@ -11,9 +11,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.models import pulse, tesnoise
-from detprocess_tpu.utils import plotting
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.models import pulse, tesnoise
+from detprocess_jax.utils import plotting
 
 
 FS = 1.25e6

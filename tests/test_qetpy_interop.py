@@ -54,7 +54,7 @@ def test_calc_psd_matches_ours():
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    from detprocess_tpu.ops import spectral
+    from detprocess_jax.ops import spectral
 
     rng = np.random.default_rng(5)
     traces = rng.standard_normal((24, N)) * 3e-9

@@ -10,7 +10,7 @@ import sys
 import numpy as np
 import pytest
 
-from detprocess_tpu.io.rawdata import RawData, RawReader
+from detprocess_jax.io.rawdata import RawData, RawReader
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "raw_fixture")
 GEN = os.path.join(os.path.dirname(__file__), "fixtures",

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import pulsefit
-from detprocess_tpu.pipelines.features import FeatureProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import pulsefit
+from detprocess_jax.pipelines.features import FeatureProcessing
 
 FS = 1.25e6
 N = 4096

@@ -13,12 +13,12 @@ import yaml
 
 import jax.numpy as jnp
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import saltinject
-from detprocess_tpu.pipelines.salting import Salting
-from detprocess_tpu.pipelines.triggers import TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import saltinject
+from detprocess_jax.pipelines.salting import Salting
+from detprocess_jax.pipelines.triggers import TriggerProcessing
 
 FS = 1.25e6
 L = 250000
@@ -188,7 +188,7 @@ class TestPipelineParity:
         injection compose with ``mesh=``: the conv factors and the
         SaltPlan shard (and pad) with the event batch, and the salted
         sharded trigger set equals the single-device one."""
-        from detprocess_tpu.parallel import mesh as pmesh
+        from detprocess_jax.parallel import mesh as pmesh
 
         mesh = pmesh.make_mesh(8)
         dfs = {}
@@ -211,7 +211,7 @@ class TestPipelineParity:
             dfs[False].reset_index(drop=True))
 
     def test_feature_reinjection_device(self, setup, config_path):
-        from detprocess_tpu.pipelines.features import FeatureProcessing
+        from detprocess_jax.pipelines.features import FeatureProcessing
 
         proc = TriggerProcessing(setup["raw_files"], config_path,
                                  filter_data=setup["fd"], verbose=False)

@@ -3,7 +3,7 @@
 import numpy as np
 import pandas as pd
 
-from detprocess_tpu.pipelines.salting import salt_efficiency
+from detprocess_jax.pipelines.salting import salt_efficiency
 
 
 def _salts(energies, indices, series=1, event=1):

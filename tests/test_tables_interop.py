@@ -7,7 +7,7 @@ downstream tools (vaex/detanalysis) read that layout:
 bytes. vaex itself is not installed here, so — like the filter-file
 fixture — the check uses RAW h5py on both sides of the boundary:
 
-- a fixture file written with plain h5py (no detprocess_tpu imports)
+- a fixture file written with plain h5py (no detprocess_jax imports)
   must read back through ``io.tables.read_vaex_hdf5``;
 - a file written by ``io.tables.write_vaex_hdf5`` must parse with a
   plain-h5py reader implementing the documented layout.
@@ -17,7 +17,7 @@ import h5py
 import numpy as np
 import pandas as pd
 
-from detprocess_tpu.io import tables
+from detprocess_jax.io import tables
 
 
 def _independent_write(path, columns):
@@ -116,7 +116,7 @@ def test_vaex_hdf5_utf8_and_missing_roundtrip(tmp_path):
     import numpy as np
     import pandas as pd
 
-    from detprocess_tpu.io import tables
+    from detprocess_jax.io import tables
 
     df = pd.DataFrame({
         "s": np.array(["séries", None, "β-decay", "plain"], object),

@@ -6,12 +6,13 @@ pretrigger−N//2 index shift, detprocess/core/oftrigger.py:588-1019).
 """
 
 import jax
+import pytest
 import numpy as np
 import jax.numpy as jnp
 from scipy.signal import oaconvolve
 
-from detprocess_tpu.models import pulse
-from detprocess_tpu.ops import filterbank, trigger
+from detprocess_jax.models import pulse
+from detprocess_jax.ops import filterbank, trigger
 
 FS = 1.25e6
 NT = 1024
@@ -543,8 +544,8 @@ def test_dense_regime_exact_vs_oracle():
 
 def test_fir_alignment_randomized():
     """FIR sample alignment exact across random (nt, pretrigger, L, C)."""
-    from detprocess_tpu.models import pulse
-    from detprocess_tpu.ops import filterbank
+    from detprocess_jax.models import pulse
+    from detprocess_jax.ops import filterbank
 
     rng = np.random.default_rng(5)
     for _ in range(5):
@@ -866,12 +867,13 @@ def test_combine_trigger_data_alias():
     assert trigger.combine_trigger_data is trigger.combine_trigger_sets
 
 
-def test_fir_perm_path_equals_natural(monkeypatch):
-    """At FFT sizes where the four-step matmul FFT engages (F//2 >
-    MAX_NATIVE_FFT) the FIR switches to the transpose-free permuted
-    layout (rfft_perm → multiply → irfft_fromperm, with g_fft
-    pre-permuted at kernel build). Must equal the natural-order path."""
-    from detprocess_tpu.ops import fft as dfft
+@pytest.mark.parametrize("block", [4096, 16384, 65536])
+def test_fir_perm_path_equals_natural(block):
+    """The overlap-save FIR (rfft → per-bin multiply → irfft per
+    segment) equals one plain linear convolution of the whole trace with
+    the matched filter, q(T) = conv(x, h)[T + Nt−1−pretrigger], at every
+    segment size (the segment size only moves the overlap-save seams)."""
+    import scipy.signal
 
     rng = np.random.default_rng(7)
     template = pulse.make_template(FS, NT, PRETRIG, A=1.0, tau_r=20e-6,
@@ -879,17 +881,15 @@ def test_fir_perm_path_equals_natural(monkeypatch):
     psd = np.full(NT, 1e-20)
     bank = filterbank.make_ofnxm_bank(template, psd.astype(complex), FS,
                                       PRETRIG)
-    kernel = trigger.make_trigger_kernel(bank, block=16384,
+    kernel = trigger.make_trigger_kernel(bank, block=block,
                                          real_dtype=np.float64)
-    assert dfft.half_perm_indices(kernel.fft_size) is not None
     trace = _make_continuous(rng, template, 1e-9, [2e-6, 1e-6],
                              [9000, 30000])
-    q_perm = np.asarray(trigger.of_fir(jnp.asarray(trace)[None, :], kernel))
+    q = np.asarray(trigger.of_fir(jnp.asarray(trace)[None, :], kernel))[0]
 
-    monkeypatch.setattr(dfft, "half_perm_indices", lambda n: None)
-    kernel_nat = trigger.make_trigger_kernel(bank, block=16384,
-                                             real_dtype=np.float64)
-    q_nat = np.asarray(trigger.of_fir(jnp.asarray(trace)[None, :],
-                                      kernel_nat))
-    scale = np.max(np.abs(q_nat))
-    np.testing.assert_allclose(q_perm, q_nat, rtol=0, atol=1e-9 * scale)
+    h = np.roll(np.real(np.fft.ifft(bank.phi[0, 0])) * NT, NT - 1)
+    y = scipy.signal.fftconvolve(trace, h)
+    t = np.arange(NT, len(trace) - NT)
+    q_ref = y[t + NT - 1 - PRETRIG]
+    scale = np.max(np.abs(q_ref))
+    np.testing.assert_allclose(q[t], q_ref, rtol=0, atol=1e-9 * scale)

@@ -20,11 +20,11 @@ import pandas as pd
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines import triggers as trig_pipe
-from detprocess_tpu.pipelines.triggers import TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines import triggers as trig_pipe
+from detprocess_jax.pipelines.triggers import TriggerProcessing
 
 FS = 1.25e6
 NT, PRE = 512, 128
@@ -150,7 +150,7 @@ def test_multichannel_coincidence_fast_drain(tmp_path, mode,
 def test_multichannel_salted_fast_drain(tmp_path, monkeypatch):
     """Salted 3-channel run (host injector → float64 path) — the
     coincident salts across channels merge, fast == slow."""
-    from detprocess_tpu.pipelines.salting import Salting
+    from detprocess_jax.pipelines.salting import Salting
 
     rng = np.random.default_rng(53)
     files, fd, tmpl = _make_raw(tmp_path, rng, int16=True)
@@ -353,7 +353,7 @@ def test_coincidence_dumps_and_resume(tmp_path):
     must survive the dump/resume cycle."""
     import os
 
-    from detprocess_tpu.io import tables
+    from detprocess_jax.io import tables
 
     rng = np.random.default_rng(83)
     files, fd, _ = _make_raw(tmp_path, rng, nev=4)

@@ -7,10 +7,10 @@ import pandas as pd
 import pytest
 import yaml
 
-from detprocess_tpu.io.filterfile import FilterData
-from detprocess_tpu.io.rawdata import RawWriter, RawReader
-from detprocess_tpu.models import pulse
-from detprocess_tpu.pipelines.triggers import EventBuilder, TriggerProcessing
+from detprocess_jax.io.filterfile import FilterData
+from detprocess_jax.io.rawdata import RawWriter, RawReader
+from detprocess_jax.models import pulse
+from detprocess_jax.pipelines.triggers import EventBuilder, TriggerProcessing
 
 FS = 1.25e6
 NT = 1024
@@ -226,7 +226,7 @@ def test_nxm_compound_channel_trigger(dataset, tmp_path):
 def test_trigger_dumps_and_resume(dataset, tmp_path):
     """Periodic trigger dumps + resume: an interrupted run continued with
     resume=True yields the same triggers as one uninterrupted run."""
-    from detprocess_tpu.io import tables
+    from detprocess_jax.io import tables
     import glob
 
     out_full = str(tmp_path / "full")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from detprocess_tpu.utils import channels, windows, freq, misc
+from detprocess_jax.utils import channels, windows, freq, misc
 
 
 AVAILABLE = ["Mv2303", "Mv3112", "chanA", "chanB", "chanC"]
@@ -141,8 +141,8 @@ class TestMisc:
 
 class TestPrefetch:
     def test_prefetch_matches_sequential(self, tmp_path):
-        from detprocess_tpu.io.rawdata import RawWriter, RawReader
-        from detprocess_tpu.io.prefetch import prefetch_events
+        from detprocess_jax.io.rawdata import RawWriter, RawReader
+        from detprocess_jax.io.prefetch import prefetch_events
 
         fs, l = 1.25e6, 20000
         rng = np.random.default_rng(0)
@@ -177,7 +177,7 @@ class TestPrefetch:
             np.testing.assert_array_equal(a, b)
 
     def test_prefetch_error_propagates(self):
-        from detprocess_tpu.io.prefetch import prefetch_events
+        from detprocess_jax.io.prefetch import prefetch_events
 
         class BadReader:
             def read_next_event(self, channels=None):
@@ -190,7 +190,7 @@ class TestPrefetch:
 
 
 def test_get_dataframe_series_list(tmp_path):
-    from detprocess_tpu.utils.misc import get_dataframe_series_list
+    from detprocess_jax.utils.misc import get_dataframe_series_list
 
     for name in ("feature_grp_I1_D20260816_T120000_F0001.hdf5",
                  "feature_grp_I1_D20260816_T120000_F0002.hdf5",
@@ -203,7 +203,7 @@ def test_get_dataframe_series_list(tmp_path):
 
 
 def test_find_psd_peaks_host():
-    from detprocess_tpu.utils.misc import find_psd_peaks
+    from detprocess_jax.utils.misc import find_psd_peaks
 
     fs = 1.25e6
     n = 8192
@@ -229,7 +229,7 @@ def test_reader_applies_close_loop_norm(tmp_path):
     for any detector_config."""
     import h5py
 
-    from detprocess_tpu.io.rawdata import RawWriter, RawReader
+    from detprocess_jax.io.rawdata import RawWriter, RawReader
 
     rng = np.random.default_rng(0)
     traces = rng.standard_normal((2, 2, 256))
@@ -256,7 +256,7 @@ def test_reader_resolves_global_event_numbers(tmp_path):
     dataset names use a different (file-local) ordinal — real pytesdaq
     dumps can number events globally across dumps."""
     import h5py
-    from detprocess_tpu.io.rawdata import RawWriter, RawReader
+    from detprocess_jax.io.rawdata import RawWriter, RawReader
 
     rng = np.random.default_rng(1)
     traces = rng.standard_normal((3, 1, 128))

@@ -15,7 +15,7 @@ import pytest
 
 vaex = pytest.importorskip("vaex")
 
-from detprocess_tpu.io import tables  # noqa: E402
+from detprocess_jax.io import tables  # noqa: E402
 
 
 def test_vaex_opens_written_feature_table(tmp_path):
@@ -48,10 +48,10 @@ def test_vaex_roundtrip_through_pipeline_dump(tmp_path):
     physics columns agree with our own reader."""
     import yaml
 
-    from detprocess_tpu.io.filterfile import FilterData
-    from detprocess_tpu.io.rawdata import RawWriter
-    from detprocess_tpu.models import pulse
-    from detprocess_tpu.pipelines.triggers import TriggerProcessing
+    from detprocess_jax.io.filterfile import FilterData
+    from detprocess_jax.io.rawdata import RawWriter
+    from detprocess_jax.models import pulse
+    from detprocess_jax.pipelines.triggers import TriggerProcessing
 
     fs, nt, pre = 1.25e6, 512, 128
     tmpl = pulse.make_template(fs, nt, pre, A=1.0, tau_r=20e-6,
